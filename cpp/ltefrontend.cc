@@ -1,18 +1,18 @@
-// ltefrontend: native host-side IQ frontend for the TPU sensing framework.
+// ltefrontend: native host-side IQ frontend for the LTE sensing framework.
 //
-// TPU-native equivalent of the reference's native GNU Radio runtime pieces
+// Equivalent of the reference's native GNU Radio runtime pieces
 // (file_source / ring buffers / rational_resampler_ccc — SURVEY §2.2b):
 // everything that happens to samples BEFORE they board the device.  Hot
 // paths are plain -O3 C++ the compiler auto-vectorizes:
 //
 //   * interleaved complex64 -> planar float32 re/im (the device-side layout;
-//     see ltetrigger_tpu/ops/cplx.py)
+//     see ltetrigger_jax/ops/cplx.py)
 //   * integer polyphase decimation on the host: decimating 30.72 -> 1.92
 //     Msps before transfer cuts host->device traffic 16x
 //   * a lock-free SPSC ring buffer for live streaming producers (SDR
 //     processes, sockets) feeding the Python driver
 //
-// Exposed as a C ABI consumed via ctypes (ltetrigger_tpu/runtime/native.py).
+// Exposed as a C ABI consumed via ctypes (ltetrigger_jax/runtime/native.py).
 
 #include <atomic>
 #include <cstdint>

@@ -22,41 +22,43 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
 MODULES = [
-    "ltetrigger_tpu",
-    "ltetrigger_tpu.models.api",
-    "ltetrigger_tpu.models.multi",
-    "ltetrigger_tpu.models.wideband",
-    "ltetrigger_tpu.models.trigger",
-    "ltetrigger_tpu.runtime.cellstore",
-    "ltetrigger_tpu.runtime.native",
-    "ltetrigger_tpu.runtime.chunkbuf",
-    "ltetrigger_tpu.parallel.mesh",
-    "ltetrigger_tpu.parallel.sharded",
-    "ltetrigger_tpu.ops.correlate",
-    "ltetrigger_tpu.ops.sync",
-    "ltetrigger_tpu.ops.cfo",
-    "ltetrigger_tpu.ops.pbch",
-    "ltetrigger_tpu.ops.viterbi",
-    "ltetrigger_tpu.ops.resample",
-    "ltetrigger_tpu.ops.channelize",
-    "ltetrigger_tpu.ops.cplx",
-    "ltetrigger_tpu.ops.dft",
-    "ltetrigger_tpu.ltecore.constants",
-    "ltetrigger_tpu.ltecore.synth",
-    "ltetrigger_tpu.ltecore.refrx",
-    "ltetrigger_tpu.apps.cell_search_file",
-    "ltetrigger_tpu.apps.snr_sweep",
-    "ltetrigger_tpu.apps.live_monitor",
-    "ltetrigger_tpu.apps.wideband_scan",
-    "ltetrigger_tpu.apps.run_flowgraph",
-    "ltetrigger_tpu.utils.eng_notation",
-    "ltetrigger_tpu.utils.profiling",
+    "ltetrigger_jax",
+    "ltetrigger_jax.models.api",
+    "ltetrigger_jax.models.multi",
+    "ltetrigger_jax.models.wideband",
+    "ltetrigger_jax.models.trigger",
+    "ltetrigger_jax.runtime.cellstore",
+    "ltetrigger_jax.runtime.native",
+    "ltetrigger_jax.runtime.chunkbuf",
+    "ltetrigger_jax.parallel.mesh",
+    "ltetrigger_jax.parallel.sharded",
+    "ltetrigger_jax.ops.correlate",
+    "ltetrigger_jax.ops.sync",
+    "ltetrigger_jax.ops.cfo",
+    "ltetrigger_jax.ops.pbch",
+    "ltetrigger_jax.ops.viterbi",
+    "ltetrigger_jax.ops.resample",
+    "ltetrigger_jax.ops.channelize",
+    "ltetrigger_jax.ops.cplx",
+    "ltetrigger_jax.ops.dft",
+    "ltetrigger_jax.ltecore.constants",
+    "ltetrigger_jax.ltecore.synth",
+    "ltetrigger_jax.ltecore.refrx",
+    "ltetrigger_jax.apps.cell_search_file",
+    "ltetrigger_jax.apps.snr_sweep",
+    "ltetrigger_jax.apps.live_monitor",
+    "ltetrigger_jax.apps.wideband_scan",
+    "ltetrigger_jax.apps.run_flowgraph",
+    "ltetrigger_jax.utils.eng_notation",
+    "ltetrigger_jax.utils.profiling",
 ]
 
 
 def _sig(obj) -> str:
     try:
-        return str(inspect.signature(obj))
+        # path defaults render relative to the checkout, so the document
+        # does not depend on where the repository lives
+        return str(inspect.signature(obj)).replace(ROOT, "<checkout>")
     except (ValueError, TypeError):
         return "(...)"
 
@@ -73,7 +75,7 @@ def _is_public(name: str) -> bool:
 
 
 def render() -> str:
-    out = ["# ltetrigger_tpu — API reference",
+    out = ["# ltetrigger_jax — API reference",
            "",
            "Generated by `docs/gen_api.py` from the live docstrings "
            "(which cite reference file:line for parity checking).  "

@@ -1,11 +1,10 @@
 #!/usr/bin/env python
 """THE attribution tool for the grid engine (consolidates the former
 bench_attrib{,2,3,5}.py one-offs into subcommands so the measurement
-protocol stays reproducible — VERDICT r3 #9).
+protocol stays reproducible).
 
-All timings follow the bench protocol (BENCHNOTES.md): first-D2H stall
-paid up front, device-resident inputs, every timed region fenced by a
-device->host scalar fetch, best of N.
+All timings follow the bench protocol: device-resident inputs, every timed
+region fenced by a device->host scalar fetch, best of N.
 
 Subcommands:
   passes  [--channels C] [--steps S]
@@ -15,8 +14,10 @@ Subcommands:
   sweep   [--channels 128,512,1024] [--steps S]
       `passes` over a channel list -> the high-C attribution table.
   groups  [--channels C] [--budgets 2048,4096,8192,16384] [--steps S]
-      GROUP_BUDGET sensitivity (pass-A group amortization vs HBM): spawns
-      subprocesses with LTETRIGGER_GROUP_BUDGET set, full-engine timing.
+      GROUP_BUDGET sensitivity (pass-A group amortization vs device
+      memory): spawns one subprocess per budget with LTETRIGGER_GROUP_BUDGET
+      set, full-engine timing.  The parent never touches the device, so
+      each child in turn is the only process on the GPU.
   decode  [--channels C]
       Decode-stage micro: PBCH front-end, codeword search (Viterbi+CRC),
       raw wrap-around Viterbi, TTI chain — at bench shapes.
@@ -32,8 +33,6 @@ import subprocess
 import sys
 import time
 
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", "/root/repo/.jax_cache")
-
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -41,7 +40,7 @@ import numpy as np
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
-from ltetrigger_tpu.models import trigger as trig  # noqa: E402
+from ltetrigger_jax.models import trigger as trig  # noqa: E402
 
 R = trig.R
 
@@ -153,8 +152,8 @@ def cmd_groups(args):
 
 # ---------------------------------------------------------------- decode --
 def cmd_decode(args):
-    from ltetrigger_tpu.ops import pbch
-    from ltetrigger_tpu.ops.viterbi import viterbi_decode_wa
+    from ltetrigger_jax.ops import pbch
+    from ltetrigger_jax.ops.viterbi import viterbi_decode_wa
 
     C, K = args.channels, trig.K_CANDIDATES
     rng = np.random.default_rng(0)
@@ -194,7 +193,7 @@ def cmd_decode(args):
 
 # ----------------------------------------------------------------- micro --
 def cmd_micro(args):
-    from ltetrigger_tpu.ops import cfo as cfo_ops
+    from ltetrigger_jax.ops import cfo as cfo_ops
 
     C, S = args.channels, args.steps
     rng = np.random.default_rng(0)
@@ -278,7 +277,6 @@ def main():
                 int(x) for x in s.split(",")],
                 default=[2048, 4096, 8192, 16384])
     args = ap.parse_args()
-    _ = float(jnp.sum(jnp.ones(8)))          # first-D2H stall
     {"passes": cmd_passes, "sweep": cmd_sweep, "groups": cmd_groups,
      "decode": cmd_decode, "micro": cmd_micro}[args.cmd](args)
 

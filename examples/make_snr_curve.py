@@ -15,12 +15,10 @@ import argparse
 import json
 import os
 import sys
-import time
 
 import numpy as np
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", "/root/repo/.jax_cache")
 
 
 def knee(curve):
@@ -45,20 +43,14 @@ def main():
     args = p.parse_args()
 
     import jax
-    import jax.numpy as jnp
 
-    from ltetrigger_tpu.apps.snr_sweep import snr_sweep
-    from ltetrigger_tpu.ltecore.synth import default_port_channels
+    from ltetrigger_jax.apps.snr_sweep import snr_sweep
+    from ltetrigger_jax.ltecore.synth import default_port_channels
 
-    iq = np.fromfile(
-        "/root/reference/test_frames/lte_frame_6prb_cellid_123",
-        dtype=np.complex64)
+    from ltetrigger_jax.ltecore.synth import known_answer_frame
+    iq = known_answer_frame(6)[0]
     snrs = np.arange(args.snr_min, args.snr_max + 1e-9, args.step)
     taps = default_port_channels(1)[0]
-
-    t0 = time.perf_counter()
-    _ = float(jnp.sum(jnp.ones(8)))     # pay the first-D2H stall up front
-    stall = time.perf_counter() - t0
 
     configs = [
         ("awgn_t4", 4.0, None),
@@ -80,7 +72,7 @@ def main():
     # ONLY the PBCH REs attenuated, 6 full TTIs of exposure — the regime
     # where TTI soft-combining CAN show a gain (the overall-SNR curves
     # above are acquisition-limited, so it cannot show there)
-    from ltetrigger_tpu.apps.snr_sweep import pbch_sweep
+    from ltetrigger_jax.apps.snr_sweep import pbch_sweep
     pbch_axis = list(np.arange(-36.0, -17.9, 1.5))
     pbch_curves = {}
     for combine in (True, False):
@@ -187,8 +179,6 @@ def main():
             "combining (reference lib/mib_impl.cc:75-76,162) exists for",
             "exactly this interference/coverage-limited case.",
         ]
-    lines += ["", f"(first-D2H stall paid before measurement: {stall:.0f} s; "
-              "see BENCHNOTES.md)"]
     with open("SNR_CURVE.md", "w") as f:
         f.write("\n".join(lines) + "\n")
     print("\n".join(lines))

@@ -19,9 +19,9 @@ def main() -> int:
     os.environ["JAX_PLATFORMS"] = "cpu"
     import jax
 
-    from ltetrigger_tpu.models import trigger as trig
-    from ltetrigger_tpu.parallel import channel_scan, make_mesh
-    from ltetrigger_tpu.parallel.mesh import init_distributed
+    from ltetrigger_jax.models import trigger as trig
+    from ltetrigger_jax.parallel import channel_scan, make_mesh
+    from ltetrigger_jax.parallel.mesh import init_distributed
 
     init_distributed(os.environ["TEST_COORD"],
                      int(os.environ["TEST_NPROC"]),
@@ -30,9 +30,8 @@ def main() -> int:
     assert len(jax.devices()) == 8, len(jax.devices())
     assert len(jax.local_devices()) == 4
 
-    iq = np.fromfile(
-        "/root/reference/test_frames/lte_frame_6prb_cellid_123",
-        dtype=np.complex64)
+    from ltetrigger_jax.ltecore import synth
+    iq, cell_id, _ = synth.known_answer_frame(6)
     sig = np.concatenate([
         np.zeros(trig.LOOKBACK, np.complex64), np.tile(iq, 2),
         np.zeros(trig.WINDOW, np.complex64)])
@@ -61,7 +60,7 @@ def main() -> int:
     cid = multihost_utils.process_allgather(out.cell_id, tiled=True)
     per_chan = ev.any(axis=(0, 2))
     assert per_chan.tolist() == [True, False] * 4, per_chan
-    assert set(cid[ev].tolist()) == {123}, cid[ev]
+    assert set(cid[ev].tolist()) == {cell_id}, cid[ev]
     print("DISTRIBUTED_OK", flush=True)
     return 0
 

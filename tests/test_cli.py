@@ -7,8 +7,8 @@ import threading
 import numpy as np
 import pytest
 
-from ltetrigger_tpu.apps import cell_search_file as cli
-from ltetrigger_tpu.utils.eng_notation import num_to_str, str_to_num
+from ltetrigger_jax.apps import cell_search_file as cli
+from ltetrigger_jax.utils.eng_notation import num_to_str, str_to_num
 from tests.conftest import FRAMES, TEST_FRAMES_DIR
 
 
@@ -100,7 +100,7 @@ def test_live_monitor(tmp_path, capsys):
     import io
     import json as _json
 
-    from ltetrigger_tpu.apps import live_monitor
+    from ltetrigger_jax.apps import live_monitor
 
     iq, cell_id, _ = __import__("tests.conftest", fromlist=["load_frame"]) \
         .load_frame(6)
@@ -130,7 +130,7 @@ def test_live_monitor(tmp_path, capsys):
 
 def test_trigger_stage_timer():
     """Trigger.process accumulates per-stage wall clock (SURVEY §5 gap)."""
-    from ltetrigger_tpu.models import api
+    from ltetrigger_jax.models import api
     from tests.conftest import load_frame
 
     iq, _, _ = load_frame(6)
@@ -153,7 +153,7 @@ def test_live_monitor_multi_source():
     import io
     import json as _json
 
-    from ltetrigger_tpu.apps import live_monitor
+    from ltetrigger_jax.apps import live_monitor
     from tests.conftest import load_frame
 
     iq, cell_id, _ = load_frame(6)
@@ -182,12 +182,11 @@ def test_live_monitor_wideband():
     import io
     import json as _json
 
-    from ltetrigger_tpu.apps import live_monitor
-    from ltetrigger_tpu.ltecore import synth
-    from tests.test_wideband import _upconvert
+    from ltetrigger_jax.apps import live_monitor
+    from ltetrigger_jax.ltecore import synth
 
     fa = synth.synthesize_frame(99, nof_prb_field=25)
-    wide = _upconvert(np.tile(fa, 10), 7.68e6, 2.4e6)
+    wide = synth.upconvert(np.tile(fa, 10), 7.68e6, 2.4e6)
     wide = (wide / np.sqrt(np.mean(np.abs(wide) ** 2))).astype(np.complex64)
     out = io.StringIO()
     live_monitor.run_wideband(io.BytesIO(wide.tobytes()), 7.68e6,

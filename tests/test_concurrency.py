@@ -6,7 +6,7 @@ import threading
 
 import numpy as np
 
-from ltetrigger_tpu.runtime.cellstore import Cell, CellStore
+from ltetrigger_jax.runtime.cellstore import Cell, CellStore
 
 
 def _mkcell(i):
@@ -70,7 +70,7 @@ def test_cellstore_query_during_mutation():
 def test_parallel_triggers_one_store():
     """Two Trigger pipelines (separate threads, e.g. two antennas) feeding
     one shared CellStore."""
-    from ltetrigger_tpu.models import api
+    from ltetrigger_jax.models import api
     from tests.conftest import load_frame
 
     iq, cell_id, _ = load_frame(6)

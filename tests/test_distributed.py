@@ -1,6 +1,6 @@
 """Multi-process (2-controller) mesh bring-up test.
 
-Exercises parallel/mesh.py::init_distributed the way a real multi-host TPU
+Exercises parallel/mesh.py::init_distributed the way a real multi-host
 deployment would use it: two OS processes, each owning 4 virtual CPU
 devices, form one global 8-device mesh and run a sharded channel_scan whose
 result is allgathered and checked on both controllers.  The reference has

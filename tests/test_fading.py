@@ -8,8 +8,8 @@ SFBC / SFBC-FSTD combiners."""
 import numpy as np
 import pytest
 
-from ltetrigger_tpu.ltecore import synth
-from ltetrigger_tpu.models import api
+from ltetrigger_jax.ltecore import synth
+from ltetrigger_jax.models import api
 
 
 def _channel_response(taps, nfft=128):

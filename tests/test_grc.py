@@ -12,8 +12,8 @@ import re
 import pytest
 import yaml
 
-from ltetrigger_tpu.models import api
-from ltetrigger_tpu.runtime.cellstore import CellStore
+from ltetrigger_jax.models import api
+from ltetrigger_jax.runtime.cellstore import CellStore
 
 GRC_DIR = pathlib.Path(__file__).resolve().parent.parent / "grc"
 
@@ -33,12 +33,12 @@ def test_grc_descriptors_parse():
     assert descs, "no GRC descriptors found"
     for p in descs:
         d = _load(p.name)
-        assert d["id"].startswith("ltetrigger_tpu_"), p.name
+        assert d["id"].startswith("ltetrigger_jax_"), p.name
         assert "templates" in d and "label" in d
 
 
 def test_trigger_descriptor_matches_api():
-    d = _load("ltetrigger_tpu_trigger.block.yml")
+    d = _load("ltetrigger_jax_trigger.block.yml")
     sig = inspect.signature(api.Trigger.__init__)
 
     declared = {p["id"] for p in d.get("parameters", [])}
@@ -53,7 +53,7 @@ def test_trigger_descriptor_matches_api():
         assert ref in declared, f"make template uses undeclared ${{{ref}}}"
         assert ref in sig.parameters
     # the import in the template must resolve
-    assert "from ltetrigger_tpu.models import api" in d["templates"]["imports"]
+    assert "from ltetrigger_jax.models import api" in d["templates"]["imports"]
 
     # callbacks must name real methods with compatible arity
     for cb in d["templates"].get("callbacks", []):
@@ -91,7 +91,7 @@ def test_trigger_descriptor_matches_api():
 
 
 def test_cellstore_descriptor_matches_api():
-    d = _load("ltetrigger_tpu_cellstore.block.yml")
+    d = _load("ltetrigger_jax_cellstore.block.yml")
     ins = {i["label"] for i in d.get("inputs", [])
            if i.get("domain") == "message"}
     assert ins == {"track", "drop"}
@@ -111,7 +111,7 @@ def test_demo_flowgraph_loads_and_cross_checks(grc_file):
     reference only block ids that exist (GR builtins or grc/*.block.yml
     descriptors), use only declared parameters, and connect only declared
     ports."""
-    from ltetrigger_tpu.apps.run_flowgraph import (_STREAM_IDS,
+    from ltetrigger_jax.apps.run_flowgraph import (_STREAM_IDS,
                                                    load_descriptors,
                                                    load_flowgraph)
 
@@ -151,7 +151,7 @@ def test_demo_flowgraph_runs_headless():
     graph by evaluating the block descriptors' own make templates and the
     looped 6 PRB capture publishes cell 123 into the flowgraph's
     cellstore."""
-    from ltetrigger_tpu.apps.run_flowgraph import FlowgraphRunner
+    from ltetrigger_jax.apps.run_flowgraph import FlowgraphRunner
 
     root = GRC_DIR.parent
     cap = pathlib.Path("/root/reference/test_frames/"
@@ -173,7 +173,7 @@ def test_snr_flowgraph_runs_headless():
     trigger) runs headless: at the shipped low noise the cell publishes;
     with the noise variable raised far above the detection knee it must
     not (the flowgraph's variables are live knobs, like the GUI sliders)."""
-    from ltetrigger_tpu.apps.run_flowgraph import FlowgraphRunner
+    from ltetrigger_jax.apps.run_flowgraph import FlowgraphRunner
 
     root = GRC_DIR.parent
     cap = pathlib.Path("/root/reference/test_frames/"

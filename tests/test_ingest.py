@@ -4,9 +4,9 @@ chunking invariance (VERDICT r4 weak #6 / #8)."""
 import numpy as np
 import pytest
 
-from ltetrigger_tpu.models import api
-from ltetrigger_tpu.models.multi import MultiTrigger
-from ltetrigger_tpu.runtime.chunkbuf import ChunkBuffer
+from ltetrigger_jax.models import api
+from ltetrigger_jax.models.multi import MultiTrigger
+from ltetrigger_jax.runtime.chunkbuf import ChunkBuffer
 from tests.conftest import load_frame
 
 

@@ -4,7 +4,7 @@ lacks — SURVEY.md §4 'unit tests: effectively none')."""
 import numpy as np
 import pytest
 
-from ltetrigger_tpu.ltecore import (coding, constants as C, crs, mib, pss,
+from ltetrigger_jax.ltecore import (coding, constants as C, crs, mib, pss,
                                     scrambling, sss)
 
 
@@ -103,7 +103,7 @@ class TestCoding:
             state = ns
 
     def test_viterbi_loopback(self):
-        from ltetrigger_tpu.ltecore.refrx import viterbi_tailbiting
+        from ltetrigger_jax.ltecore.refrx import viterbi_tailbiting
         rng = np.random.default_rng(1)
         for trial in range(5):
             payload = rng.integers(0, 2, 24).astype(np.uint8)

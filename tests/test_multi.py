@@ -8,9 +8,9 @@ axis only batches work, never mixes streams.
 import numpy as np
 import pytest
 
-from ltetrigger_tpu.ltecore import synth
-from ltetrigger_tpu.models import api
-from ltetrigger_tpu.models.multi import MultiTrigger
+from ltetrigger_jax.ltecore import synth
+from ltetrigger_jax.models import api
+from ltetrigger_jax.models.multi import MultiTrigger
 from tests.conftest import load_frame
 
 CHUNK = 19200
@@ -149,7 +149,7 @@ def test_rebase_preserves_detection(monkeypatch):
     2^29 samples = ~4.7 min) must be transparent: detections and telemetry
     continue across the wrap.  Threshold patched small so the test streams
     seconds, not minutes."""
-    from ltetrigger_tpu.models import api
+    from ltetrigger_jax.models import api
     from tests.conftest import load_frame as lf
 
     iq, cell_id, _ = lf(6)
@@ -159,7 +159,7 @@ def test_rebase_preserves_detection(monkeypatch):
     monkeypatch.setattr(MultiTrigger, "REBASE_AT", 4 * 19200)
 
     # pipeline=0: fully-drained synchronous calls so stream positions
-    # advance per call on the slow CPU backend (on TPU the pipelined
+    # advance per call on the slow CPU backend (on a GPU the pipelined
     # driver harvests continuously and hits the same path)
     t1 = api.Trigger(psr_threshold=4, transport="f32", pipeline=0)
     cells = []
@@ -227,7 +227,7 @@ def test_multi_sharded_over_mesh_matches_unsharded():
     unsharded events and telemetry (the [N] axis partitions with zero
     cross-device communication; same jitted programs, shardings propagate
     from the inputs)."""
-    from ltetrigger_tpu.parallel import make_mesh
+    from ltetrigger_jax.parallel import make_mesh
 
     iq, cell_id, _ = load_frame(6)
     rng = np.random.default_rng(21)

@@ -5,8 +5,8 @@ import threading
 import numpy as np
 import pytest
 
-from ltetrigger_tpu.ltecore import refrx
-from ltetrigger_tpu.runtime import native
+from ltetrigger_jax.ltecore import refrx
+from ltetrigger_jax.runtime import native
 from tests.conftest import load_frame
 
 

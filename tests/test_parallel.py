@@ -7,8 +7,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from ltetrigger_tpu.models import trigger as trig
-from ltetrigger_tpu.parallel import (channel_scan, make_mesh,
+from ltetrigger_jax.models import trigger as trig
+from ltetrigger_jax.parallel import (channel_scan, make_mesh,
                                      time_sharded_scan)
 from tests.conftest import load_frame
 
@@ -127,7 +127,7 @@ def test_time_shard_halo_only_detection():
 
 
 def test_halo_exchange_unit():
-    from ltetrigger_tpu.parallel.sharded import halo_exchange_right
+    from ltetrigger_jax.parallel.sharded import halo_exchange_right
     from jax.sharding import PartitionSpec as P
     mesh = make_mesh(n_channels=1, n_time=8)
     x = jnp.arange(64, dtype=jnp.float32)
@@ -154,10 +154,10 @@ def test_time_sharded_matches_continuous_property():
     block instead of once — the documented re-detection-latency trade,
     parallel/sharded.py:19-29.  The detected-cell SET must not.)
 
-    SNR levels sit well away from the detection knee (~-9 dB, SNR_CURVE.md)
+    SNR levels sit well away from the detection knee (~-9 dB)
     so the property is deterministic, not a coin flip at the boundary.
     """
-    from ltetrigger_tpu.ltecore import synth
+    from ltetrigger_jax.ltecore import synth
 
     mesh = make_mesh(n_channels=2, n_time=4)
     n_steps = 16
@@ -219,9 +219,9 @@ def test_time_sharded_matches_continuous_property():
 def test_time_sharded_knee_within_1db():
     """Seam-state cost of the `t` axis, MEASURED (VERDICT r4 #4): the
     time-sharded scan gives up EMA/TTI integration at block seams
-    (parallel/sharded.py:19-29); the committed sweep
-    (examples/seam_sweep.py, BENCHNOTES.md) puts both knees at -9 dB with
-    a small in-transition probability loss.  This pins the sharded knee
+    (parallel/sharded.py:19-29); the sweep (examples/seam_sweep.py, on
+    the 6 PRB known-answer fixture) puts both knees at -9 dB with a small
+    in-transition probability loss.  This pins the sharded knee
     within 1 dB of continuous: continuous detects at its -9 dB knee,
     sharded detects at -8 dB (deterministic: seeded noise, same
     realizations through both engines)."""

@@ -7,7 +7,7 @@ These mirror the reference's known-answer integration tests
 import numpy as np
 import pytest
 
-from ltetrigger_tpu.ltecore import refrx
+from ltetrigger_jax.ltecore import refrx
 from tests.conftest import load_frame
 
 
@@ -27,7 +27,7 @@ def test_known_answer(nof_prb):
 
 def test_synthetic_pss_injection():
     """PSS injected into noise is found at the right offset with high PSR."""
-    from ltetrigger_tpu.ltecore import pss as pssmod
+    from ltetrigger_jax.ltecore import pss as pssmod
     rng = np.random.default_rng(0)
     noise = (rng.normal(size=10240) + 1j * rng.normal(size=10240)) * 0.05
     x = noise.copy()
@@ -45,8 +45,8 @@ def test_synthetic_pss_injection():
 
 def test_sss_all_cells_synthetic():
     """Synthesized SSS symbols decode to the right N_id_1 for a sweep of cells."""
-    from ltetrigger_tpu.ltecore import pss as pssmod, sss as sssmod
-    from ltetrigger_tpu.ltecore.constants import CP_NORM, SLOT_LENGTH, SYMBOL_SZ
+    from ltetrigger_jax.ltecore import pss as pssmod, sss as sssmod
+    from ltetrigger_jax.ltecore.constants import CP_NORM, SLOT_LENGTH, SYMBOL_SZ
     bins = pssmod.subcarrier_bins()
     for n_id_1 in (0, 1, 41, 100, 123, 167):
         for n_id_2 in range(3):
@@ -78,7 +78,7 @@ def test_cp_detect_synthetic():
 
 def test_mib_synthesis_loopback():
     """Full PBCH transmit -> receive loopback on a synthesized subframe."""
-    from ltetrigger_tpu.ltecore import synth
+    from ltetrigger_jax.ltecore import synth
     for cell_id in (0, 123, 369, 501):
         sf = synth.synthesize_pbch_subframe(cell_id, nof_prb_field=50,
                                             sfn=8, quarter=0)
@@ -96,7 +96,7 @@ def test_mib_synthesis_loopback():
 def test_end_to_end_synthetic_configs(nof_ports, normal_cp, quarter):
     """Configs the bundled captures don't cover: multi-port TX and extended CP
     through the full search path (PSS -> CP detect -> SSS -> MIB)."""
-    from ltetrigger_tpu.ltecore import synth
+    from ltetrigger_jax.ltecore import synth
     cell_id = 77
     f = synth.synthesize_frame(cell_id, nof_prb_field=15,
                                nof_ports=nof_ports, normal_cp=normal_cp,

@@ -4,7 +4,7 @@ offered as a GUI demo)."""
 
 import numpy as np
 
-from ltetrigger_tpu.apps.snr_sweep import snr_sweep
+from ltetrigger_jax.apps.snr_sweep import snr_sweep
 from tests.conftest import load_frame
 
 
@@ -21,8 +21,8 @@ def test_snr_sweep_curve():
 
 def test_detection_knee_pinned():
     """The detection-SNR knee at the reference's default threshold 4 sits
-    at -8 dB (measured curve committed in SNR_CURVE.md): detection holds at
-    -8 dB and is gone by -14 dB.  Guards the BASELINE.md secondary metric
+    at -8 dB (examples/make_snr_curve.py measures the curve): detection
+    holds at -8 dB and is gone by -14 dB.  Guards the BASELINE.md secondary metric
     against sensitivity regressions."""
     iq, cell_id, rate = load_frame(6)
     curve = snr_sweep(iq, rate, snrs_db=[-14, -8], seconds=0.5, seed=0)
@@ -38,10 +38,10 @@ def test_tti_combining_gain_in_pbch_limited_regime():
     ONLY the PBCH REs attenuated, exposure = 4 full TTIs.  At a PBCH level
     between the two knees (-27 dB rel: combine P=1.0, single P=0.0 on the
     committed curve), combining must publish and the stateless decoder
-    must not.  The overall-SNR curves in SNR_CURVE.md are
+    must not.  The overall-SNR curves (examples/make_snr_curve.py) are
     acquisition-limited and cannot separate the two — this pins the
     separation where it exists."""
-    from ltetrigger_tpu.apps.snr_sweep import pbch_sweep
+    from ltetrigger_jax.apps.snr_sweep import pbch_sweep
 
     p_comb = pbch_sweep([-27.0], n_ttis=4, n_trials=4, combine=True,
                         seed=2)[0]["prob"]

@@ -1,4 +1,4 @@
-"""Integration tests for the fused trigger pipeline — the TPU-native
+"""Integration tests for the fused trigger pipeline — the device
 equivalents of the reference's 4 known-answer QA tests
 (python/qa_downlink_trigger_c.py) plus state-machine behavior tests the
 reference never had."""
@@ -7,9 +7,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from ltetrigger_tpu.ltecore import synth
-from ltetrigger_tpu.models import api, trigger as trig
-from ltetrigger_tpu.runtime.cellstore import CellStore
+from ltetrigger_jax.ltecore import synth
+from ltetrigger_jax.models import api, trigger as trig
+from ltetrigger_jax.runtime.cellstore import CellStore
 from tests.conftest import load_frame
 
 
@@ -103,7 +103,7 @@ def test_scan_engine_matches_streaming():
     iq, cell_id, _ = load_frame(6)
     sig = np.tile(iq, 4)
 
-    from ltetrigger_tpu.ops import cplx
+    from ltetrigger_jax.ops import cplx
     sp = cplx.from_numpy(sig)
     zh = jnp.zeros(trig.LOOKBACK, jnp.float32)
     zt = jnp.zeros(trig.WINDOW, jnp.float32)
@@ -189,7 +189,7 @@ def _hostile_burst(cell_id: int, n_bad: int, n_good: int):
 
 
 def _engine_buffer(sig: np.ndarray):
-    from ltetrigger_tpu.ops import cplx
+    from ltetrigger_jax.ops import cplx
 
     sp = cplx.from_numpy(sig)
     zh = jnp.zeros(trig.LOOKBACK, jnp.float32)
@@ -360,7 +360,7 @@ def test_cfo_recovery_end_to_end():
     rx = (f * np.exp(2j * np.pi * cfo / 128.0 * n)).astype(np.complex64)
 
     # sanity: without correction the subframe must NOT decode
-    from ltetrigger_tpu.ltecore import refrx
+    from ltetrigger_jax.ltecore import refrx
     assert refrx.mib_decode_subframe(rx[:1920].astype(np.complex128),
                                      123) is None
 

@@ -6,38 +6,23 @@ carriers, VERDICT r4 #1)."""
 import numpy as np
 import pytest
 
-from ltetrigger_tpu.apps.wideband_scan import wideband_scan
-from ltetrigger_tpu.ltecore import synth
-from ltetrigger_tpu.models.multi import MultiTrigger
-from ltetrigger_tpu.models.wideband import WidebandTrigger
-from ltetrigger_tpu.ops import channelize, cplx
+from ltetrigger_jax.apps.wideband_scan import wideband_scan
+from ltetrigger_jax.ltecore import synth
+from ltetrigger_jax.models.multi import MultiTrigger
+from ltetrigger_jax.models.wideband import WidebandTrigger
+from ltetrigger_jax.ops import channelize, cplx
 from tests.conftest import load_frame
-
-
-def _upconvert(frame_1p92: np.ndarray, wide_rate: float,
-               offset_hz: float) -> np.ndarray:
-    """Interpolate a 1.92 Msps signal to wide_rate and mix to offset_hz."""
-    ratio = int(wide_rate / 1.92e6)
-    n = frame_1p92.size
-    # zero-stuff + lowpass via FFT interpolation (host-side test utility)
-    F = np.fft.fft(frame_1p92)
-    Fw = np.zeros(n * ratio, dtype=np.complex128)
-    Fw[:n // 2] = F[:n // 2]
-    Fw[-n // 2:] = F[-n // 2:]
-    wide = np.fft.ifft(Fw) * ratio
-    t = np.arange(wide.size, dtype=np.float64)
-    return wide * np.exp(2j * np.pi * (offset_hz / wide_rate) * t)
 
 
 def test_channelizer_roundtrip():
     """Up-convert the 6 PRB capture to an offset inside a 7.68M band;
     channelizing at that offset must recover a detectable signal."""
     iq, cell_id, _ = load_frame(6)
-    wide = _upconvert(iq.astype(np.complex128), 7.68e6, 1.5e6)
+    wide = synth.upconvert(iq.astype(np.complex128), 7.68e6, 1.5e6)
     chans = channelize.channelize(wide.astype(np.complex64), 7.68e6,
                                   [0.0, 1.5e6])
     x = cplx.to_numpy((chans[0][1], chans[1][1]))
-    from ltetrigger_tpu.ltecore import refrx
+    from ltetrigger_jax.ltecore import refrx
     power = refrx.pss_correlate(
         np.concatenate([x, x]).astype(np.complex128), cell_id % 3)
     pk, psr = refrx.peak_and_psr(power)
@@ -53,8 +38,8 @@ def test_wideband_scan_two_cells():
     """Two synthesized cells at different offsets in one 7.68M capture."""
     fa = synth.synthesize_frame(99, nof_prb_field=25)
     fb = synth.synthesize_frame(250, nof_prb_field=50)
-    wide = (_upconvert(np.tile(fa, 2), 7.68e6, -2.4e6)
-            + _upconvert(np.tile(fb, 2), 7.68e6, 2.4e6))
+    wide = (synth.upconvert(np.tile(fa, 2), 7.68e6, -2.4e6)
+            + synth.upconvert(np.tile(fb, 2), 7.68e6, 2.4e6))
     wide = (wide / np.sqrt(np.mean(np.abs(wide) ** 2))).astype(np.complex64)
 
     out = wideband_scan(wide, 7.68e6, [-2.4e6, 0.0, 2.4e6], seconds=0.25)
@@ -77,8 +62,8 @@ WCHUNK = 4 * 19200                      # wide samples per feed
 def _two_cell_band(n_frames: int = 12) -> tuple[np.ndarray, dict]:
     fa = synth.synthesize_frame(99, nof_prb_field=25)
     fb = synth.synthesize_frame(250, nof_prb_field=50)
-    wide = (_upconvert(np.tile(fa, n_frames), RATE, -2.4e6)
-            + _upconvert(np.tile(fb, n_frames), RATE, 2.4e6))
+    wide = (synth.upconvert(np.tile(fa, n_frames), RATE, -2.4e6)
+            + synth.upconvert(np.tile(fb, n_frames), RATE, 2.4e6))
     wide = (wide / np.sqrt(np.mean(np.abs(wide) ** 2))).astype(np.complex64)
     return wide, {0: 99, 2: 250}
 
@@ -136,7 +121,7 @@ def test_wideband_trigger_chunking_invariant():
 
 @pytest.mark.parametrize("transport", ["i16", "i8", "i4"])
 def test_wideband_trigger_quantized_transports(transport):
-    """The tunnel-economy transports detect through the wideband path (the
+    """The quantized transports detect through the wideband path (the
     per-channel effective SNR gains 10*log10(ratio) dB of decimation
     processing gain over the wide-stream quantization noise)."""
     wide, expect = _two_cell_band()
@@ -193,7 +178,7 @@ def test_wideband_trigger_sharded_over_mesh():
     """WidebandTrigger(mesh=...): carrier lanes shard over the `ch` axis
     (one wide upload, channelized into device-sharded rows) and produce
     exactly the unsharded events and telemetry."""
-    from ltetrigger_tpu.parallel import make_mesh
+    from ltetrigger_jax.parallel import make_mesh
 
     wide, expect = _two_cell_band()
     centers4 = CENTERS + [1.2e6]          # 4 lanes / 4-device ch axis
@@ -226,9 +211,9 @@ def test_wideband_integer_cfo_acquisition():
     sig = np.tile(fa, 12)
     n = np.arange(sig.size, dtype=np.float64)
     off = (sig * np.exp(2j * np.pi * 1.3 / 128.0 * n))
-    wide = _upconvert(off, RATE, -2.4e6)
+    wide = synth.upconvert(off, RATE, -2.4e6)
     fb = synth.synthesize_frame(250, nof_prb_field=50)
-    wide = wide + _upconvert(np.tile(fb, 12), RATE, 2.4e6)
+    wide = wide + synth.upconvert(np.tile(fb, 12), RATE, 2.4e6)
     wide = (wide / np.sqrt(np.mean(np.abs(wide) ** 2))).astype(np.complex64)
 
     plain = WidebandTrigger(RATE, CENTERS, psr_threshold=4, transport="f32")
